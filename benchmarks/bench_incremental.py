@@ -54,8 +54,7 @@ def main():
             rng_t = np.random.default_rng()
             t0 = time.perf_counter()
             for k in range(reps):
-                # fresh random jiggle: the result cache persists across
-                # processes (docs/PERF.md).
+                # fresh random jiggle per rep
                 st_k = state._replace(graph=state.graph._replace(
                     poses=state.graph.poses + jnp.asarray(
                         rng_t.normal(0, 1e-6, (1, 1)), jnp.float32)))

@@ -1,19 +1,17 @@
-"""Microbenchmark of the NDT matcher hot path (scans/s roofline hunt).
+"""Microbenchmark of the NDT matcher hot path.
 
-Times, on the real chip, the pieces of ``ndtpu.ndt.match.match_batch`` at the
+Times, on the GPU, the pieces of ``ndtpu.ndt.match.match_batch`` at the
 headline bench shape (B=256 scans x 720 beams, 128x128 cells, overlap 4):
 
   1. one full batched LM registration        (the headline op)
   2. one sgh evaluation (gather + terms)     (per-iteration cost)
-  3. the quad-row gather alone               (HBM-traffic lower bound probe)
-  4. the point-terms FLOP block alone        (VPU-bound probe, fed by a
-                                              pre-gathered rows tensor)
+  3. the quad-row gather alone               (memory-traffic probe)
+  4. the point-terms FLOP block alone        (elementwise-bound probe, fed
+                                              by a pre-gathered rows tensor)
 
-Roofline (corrected in round 3 — see docs/PERF.md): the gather is INDEX-
-RATE bound (~79M gathered rows/s measured), not HBM-bandwidth bound; the
-round-2 "~210k scans/s speed-of-light" figure assumed bandwidth and is
-wrong. Honest per-eval cost at this shape is ~2.34 ms (halving row bytes
-changes nothing), so the formulation's ceiling is batch/(iters x 2.34 ms).
+The formulation's ceiling is batch / (iterations x per-eval cost); which
+bound the gather hits on the GPU is not measured yet (PERF.md, open
+questions).
 """
 
 from __future__ import annotations
@@ -62,7 +60,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/ndtpu_jax_cache")
+    from ndtpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     from ndtpu.config import GridConfig, MatchConfig, NDTMapConfig
     from ndtpu.data import synth

@@ -30,7 +30,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/ndtpu_jax_cache")
+    from ndtpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     from ndtpu.config import (GridConfig, KeyframeConfig, LoopConfig,
                               PipelineConfig)

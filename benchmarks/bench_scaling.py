@@ -3,13 +3,15 @@ a virtual device mesh (real multi-host runs use the same code over
 ``multihost_mesh()`` after ``jax.distributed.initialize()``).
 
 Weak scaling: problem size grows with device count (poses_per_shard fixed);
-efficiency = t(1 shard) / t(D shards). On virtual CPU devices the absolute
-numbers are meaningless but the collective/partition structure is identical
-to ICI/DCN execution, and the efficiency trend exposes separator growth.
+efficiency = t(1 shard) / t(D shards). It runs on whatever devices JAX
+sees: the GPUs of one host, or virtual CPU devices, whose absolute numbers
+are meaningless but whose collective/partition structure is identical and
+whose efficiency trend exposes separator growth.
 
 Usage:
+  python benchmarks/bench_scaling.py [poses_per_shard]            # GPUs
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
-      python benchmarks/bench_scaling.py [poses_per_shard]
+      python benchmarks/bench_scaling.py [poses_per_shard]        # CPU
 """
 
 from __future__ import annotations
@@ -30,15 +32,6 @@ def main():
     per_shard = int(sys.argv[1]) if len(sys.argv) > 1 else 500
 
     import jax
-
-    if jax.default_backend() != "cpu":
-        # Force the virtual-device CPU path when run standalone.
-        jax.config.update("jax_platforms", "cpu")
-        try:
-            from jax.extend.backend import clear_backends
-            clear_backends()
-        except Exception:
-            pass
     import jax.numpy as jnp
 
     from ndtpu import dist
@@ -71,8 +64,7 @@ def main():
         t0 = time.perf_counter()
         rng_t = np.random.default_rng()
         for k in range(3):
-            # fresh random jiggle: the result cache persists across
-            # processes (docs/PERF.md).
+            # fresh random jiggle per rep
             out = step(g._replace(poses=g.poses + jnp.asarray(
                 rng_t.normal(0, 1e-6, (1, 1)), jnp.float32)))
         jax.block_until_ready(out)

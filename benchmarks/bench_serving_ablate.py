@@ -2,7 +2,7 @@
 
 Runs the real 8-session x 300-scan serving workload through variants of
 ``_stacked_window_step`` with later stages disabled, and reports the
-marginal cost of each stage (docs/PERF.md §9 budget, re-measured in
+marginal cost of each stage (PERF.md budget, re-measured in
 place). Ablation changes the trajectory the later windows see (no
 smoothing -> more drift), so the numbers are budget-grade, not exact;
 iteration counts in the LM while_loops are data-dependent but shapes are

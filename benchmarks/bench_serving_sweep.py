@@ -2,7 +2,7 @@
 
 Reproduces bench.py section 6b (8 sessions x 300 scans through
 run_sessions_stacked) and sweeps the sequential-depth / amortization
-levers identified by the docs/PERF.md §9 budget:
+levers identified by the PERF.md budget:
 
 - window W (amortizes per-window fixed costs: packs, smoother, refresh)
 - pass2_max_iter (warm-started second pass needs fewer LM iterations)

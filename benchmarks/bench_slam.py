@@ -43,8 +43,7 @@ def run_config(label, cfg, n_scans, windowed=True):
     rng = __import__("numpy").random.default_rng()
     reps, tot = 3, 0.0
     for k in range(reps):
-        # fresh random jiggle: deterministic offsets reused across runs hit
-        # the cross-process result cache (docs/PERF.md)
+        # fresh random jiggle per rep
         pts_k = seq.points + jnp.asarray(rng.normal(0, 1e-5, (1, 1, 1)),
                                          seq.points.dtype)
         t0 = time.perf_counter()

@@ -55,8 +55,7 @@ def main():
         rng_t = np.random.default_rng()
         t0 = time.perf_counter()
         for k in range(reps):
-            # fresh random pose jiggle: the result cache persists across
-            # processes, so deterministic offsets go stale (docs/PERF.md).
+            # fresh random pose jiggle per rep
             gk = g._replace(poses=g.poses + jnp.asarray(
                 rng_t.normal(0, 1e-6, (1, 1)), jnp.float32))
             out = full(gk, lam)

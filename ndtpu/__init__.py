@@ -1,9 +1,9 @@
-"""ndtpu — TPU-native 2D laser SLAM engine.
+"""ndtpu — 2D laser SLAM engine in JAX.
 
 A from-scratch re-engineering of the capability set of the reference
 ``sven-glory/GTSAM-NDT`` pipeline (NDT scan-matching frontend + GTSAM
 pose-graph/iSAM backend; see SURVEY.md §1-§4) as batched, static-shape
-JAX/XLA/Pallas tensor programs for TPU:
+JAX/XLA tensor programs, run on an NVIDIA GPU:
 
 - ``ndtpu.lie``     — SE(2) Lie-group ops on ``[..., 3]`` pose tensors
                       (capability of GTSAM ``gtsam/geometry/Pose2``).
@@ -24,9 +24,6 @@ JAX/XLA/Pallas tensor programs for TPU:
 - ``ndtpu.data``    — CARMEN log parser, g2o parser, synthetic lidar
                       simulator, Manhattan-world pose-graph generator.
 - ``ndtpu.eval``    — ATE / RPE trajectory metrics (Umeyama alignment).
-- ``ndtpu.kernels`` — (empty by evidence: the hot loop is gather-
-                      bound and Mosaic can't lower big-table
-                      gathers; see docs/PERF.md §3).
 
 The reference checkout was empty when this project was designed (SURVEY.md
 §0); behavioral parity claims cite SURVEY.md sections (which carry their own

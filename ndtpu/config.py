@@ -102,10 +102,9 @@ class MatchConfig:
     step_clip: float = 2.0      # max |translation step| (m) per iteration
     exp_clip: float = 40.0      # clamp on Mahalanobis exponent (f32 safety)
     # Compact quad table: 64 B rows (f32 means + bf16-pair icov/valid)
-    # instead of 128 B — halves the table's HBM footprint at ~0.4% relative
-    # icov error (pose impact 0.17 mm measured). NOTE: measured NO speed
-    # change (the gather is index-rate bound, not byte bound —
-    # docs/PERF.md §3); this is a memory knob for city-scale maps. Off by
+    # instead of 128 B — halves the table's memory footprint at ~0.4%
+    # relative icov error (pose impact 0.17 mm measured). A memory knob for
+    # city-scale maps; its speed effect is not measured on the GPU. Off by
     # default so f64 oracle-parity tests see bit-exact Gaussians.
     compact_table: bool = False
     # Two-phase batched LM (match_batch_packed): the while_loop pays
@@ -164,9 +163,8 @@ class LoopConfig:
     local_cell: float = 1.0
     local_overlap: int = 4
     # Verification cost knobs (flat cached path only; the fresh/oracle
-    # paths always verify at full resolution). The verify gather is
-    # index-rate bound (docs/PERF.md §3), so cost scales with
-    # lanes x beams x LM iterations — these trade a little measurement
+    # paths always verify at full resolution). Verification work scales
+    # with lanes x beams x LM iterations — these trade a little measurement
     # precision for serving throughput:
     # verify_max_iter: LM iteration cap for loop verification (0 = use
     # match.max_iter). Verification inits come from the current pose
@@ -211,7 +209,7 @@ class SolverConfig:
     # fringe or loop windows fall back to global. Measured on the 1000-scan
     # multilap workload (~115-keyframe laps): 128/512 slots -> 14% of
     # windows global, 0.8% local; 256/1024 -> 0% global, every active loop
-    # window local, ATE 0.074 -> 0.066 m (docs/PERF.md §4).
+    # window local, ATE 0.074 -> 0.066 m.
     local_poses: int = 256          # active-set capacity (pose slots)
     local_factors: int = 1024       # gathered-factor capacity
     local_hops: int = 2
@@ -258,7 +256,7 @@ class PipelineConfig:
     # poses, so it needs only a few polish iterations — but the batched
     # while_loop pays max-over-lanes, and one frontier-scan straggler
     # otherwise drags every lane through ~15 sequential iterations
-    # (latency, not FLOPs, is what a window costs; docs/PERF.md).
+    # (sequential depth, not FLOPs, sets what a window costs).
     pass2_max_iter: int = 0
     # Initialize refinement passes (pass >= 2) from the SAME scan's
     # previous-pass converged pose instead of re-chaining prev-scan pose +
@@ -266,11 +264,11 @@ class PipelineConfig:
     # keyframes placed at pass-1 poses, so the pass-1 pose is already
     # within a fraction of a cell of the pass-2 optimum — the warm start
     # cuts the sequential LM depth of the second while_loop (the serving
-    # budget is latency-bound, docs/PERF.md §9).
+    # budget is bound by sequential depth).
     pass2_warm_start: bool = False
     # Register on every k-th beam only in the windowed frontend (1 = all
-    # beams). The matcher is gather-row-rate bound (docs/PERF.md §3), so
-    # stride k cuts the per-LM-iteration cost ~k-fold; keyframe scans are
+    # beams). Stride k cuts the per-LM-iteration work k-fold; keyframe
+    # scans are
     # stored and map-rendered at FULL resolution — only the match
     # subsamples. The registration Hessian (factor information) honestly
     # reflects the subsampled scan.
@@ -284,8 +282,7 @@ class PipelineConfig:
     # gated (loops legitimately correct large drift). 0 disables.
     odom_gate: float = 1.0
     # Incremental map refresh (windowed pipeline): instead of rebuilding the
-    # whole map from every keyframe whenever a loop factor lands (the
-    # dominant config-3 cost: ~15 ms x ~25 windows at 300 scans), each
+    # whole map from every keyframe whenever a loop factor lands, each
     # window re-places at most `refresh_top_m` keyframes whose smoothed pose
     # drifted more than `refresh_eps` from where the map last saw them —
     # NDT stats are sums, so a scan moves by subtract-at-old-pose +
@@ -299,11 +296,10 @@ class PipelineConfig:
     # Map maintenance policy. Default (refresh_top_m=0): full rebuild from
     # all keyframes whenever a loop factor lands — the policy that stays on
     # the good attractor across every variant tried (1000-scan multilap ATE
-    # 0.064-0.081); with the half-cell scatter path the rebuild costs ~4 ms,
-    # so it no longer dominates config 3. refresh_top_m>0 switches to the
+    # 0.064-0.081). refresh_top_m>0 switches to the
     # EXPERIMENTAL incremental top-M refresh (subtract/re-add only moved
     # keyframes — ndt_grid.add_points weight=-1): algebraically equivalent
-    # (unit-tested to ~1e-7) and ~2x cheaper, but the multilap scenario is
+    # (unit-tested to ~1e-7) and cheaper, but the multilap scenario is
     # bistable and single boundary-point differences (e.g. a 2-pi theta
     # wrap changing cos/sin by 1 ulp) measurably flip it into a diverged
     # attractor (ATE 7.7 m). Use with care; keep eps=0 (skipping

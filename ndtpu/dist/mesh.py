@@ -1,9 +1,11 @@
 """Device-mesh construction for multi-chip / multi-host runs.
 
 Capability parity (SURVEY.md §3.3): the reference has no parallel runtime —
-the distribution layer is pure new capability, expressed the TPU-native way:
-``jax.sharding.Mesh`` + NamedSharding/shard_map, with XLA collectives over
-ICI (intra-slice) and DCN (inter-host); no hand-rolled transport.
+the distribution layer is pure new capability, expressed the JAX way:
+``jax.sharding.Mesh`` + NamedSharding/shard_map, with XLA collectives (NCCL
+on the GPU) and no hand-rolled transport. The cards of one host are joined
+all to all (NVLink), so a mesh follows the algorithm, not a network
+topology: one axis per kind of parallelism.
 
 Axis conventions used across ndtpu.dist:
 
@@ -52,7 +54,7 @@ def multihost_mesh(axis: str = "space") -> Mesh:
 
     Uses the process-major device order so the mesh axis maps shard index ->
     host, putting the Schur all-reduce (SURVEY.md §3.3 'Distributed solve')
-    on DCN exactly once per solve. Single-process: identical to the local
-    mesh.
+    on the inter-host network exactly once per solve. Single-process:
+    identical to the local mesh.
     """
     return Mesh(np.asarray(jax.devices()), axis_names=(axis,))

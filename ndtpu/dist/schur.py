@@ -47,6 +47,7 @@ from ndtpu.config import SolverConfig
 from ndtpu.graph import factors as fct
 from ndtpu.graph import solve as slv
 from ndtpu.lie import se2
+from ndtpu.utils.runtime import MATMUL_PRECISION as _HI
 
 __all__ = ["SchurPlan", "ShardData", "plan_partition", "shard_factor_data",
            "shard_factor_data_local", "shard_data_global",
@@ -283,7 +284,9 @@ def _linearize_shard(poses, bi, bj, z, sqi, fmask, pidx, pz, psqi, pmask,
     def one_bet(pose_i, pose_j, z1, s1):
         e = fct.between_error(pose_i, pose_j, z1)
         ji, jj = fct._between_jacobians(pose_i, pose_j)
-        return s1 @ ji, s1 @ jj, s1 @ e
+        return (jnp.matmul(s1, ji, precision=_HI),
+                jnp.matmul(s1, jj, precision=_HI),
+                jnp.matmul(s1, e, precision=_HI))
 
     ai, aj, r = jax.vmap(one_bet)(poses[bi], poses[bj], z, sqi)
     if huber_delta > 0.0:
@@ -293,7 +296,7 @@ def _linearize_shard(poses, bi, bj, z, sqi, fmask, pidx, pz, psqi, pmask,
     ai, aj, r = ai * m[:, None, None], aj * m[:, None, None], r * m[:, None]
 
     def one_pri(pose, z1, s1):
-        return s1, s1 @ fct.prior_error(pose, z1)
+        return s1, jnp.matmul(s1, fct.prior_error(pose, z1), precision=_HI)
 
     ap, rp = jax.vmap(one_pri)(poses[pidx], pz, psqi)
     mp = pmask.astype(rp.dtype)
@@ -305,13 +308,14 @@ def _chi_shard(poses, bi, bj, z, sqi, fmask, pidx, pz, psqi, pmask,
                huber_delta):
     """Shard-local chi² contribution (residuals only — no Jacobians)."""
     e = jax.vmap(fct.between_error)(poses[bi], poses[bj], z)
-    r = jnp.einsum("fab,fb->fa", sqi, e)
+    r = jnp.einsum("fab,fb->fa", sqi, e, precision=_HI)
     if huber_delta > 0.0:
         r = r * fct.robust_weight(
             jnp.linalg.norm(r, axis=-1), huber_delta)[:, None]
     r = r * fmask.astype(r.dtype)[:, None]
     ep = jax.vmap(fct.prior_error)(poses[pidx], pz)
-    rp = jnp.einsum("fab,fb->fa", psqi, ep) * pmask.astype(e.dtype)[:, None]
+    rp = (jnp.einsum("fab,fb->fa", psqi, ep, precision=_HI)
+          * pmask.astype(e.dtype)[:, None])
     return jnp.sum(r * r) + jnp.sum(rp * rp)
 
 
@@ -325,8 +329,8 @@ def assemble_local_parts(ni, ns, ai, aj, r, ap, rp, s_fac_mask,
     ``h_ss``-contribution ``[ns3, ns3]``, ``b_i``, ``b_s``).
 
     The dense-local alternative is quadratic in the GLOBAL separator count
-    and tile-pads its trailing ``[3, 3]`` 14x — the same blowup fixed in
-    ndtpu.graph.supernodal for the single-chip batched path; this is the
+    and pads its trailing ``[3, 3]`` in tiled layouts — the same blowup
+    fixed in ndtpu.graph.supernodal for the single-chip batched path; this is the
     per-device (shard_map) variant used by the distributed solve.
     """
     fa_i, fa_j, fr, pa, pr = ai, aj, r, ap, rp
@@ -339,7 +343,7 @@ def assemble_local_parts(ni, ns, ai, aj, r, ap, rp, s_fac_mask,
     ga = jnp.concatenate([fa_i, fa_i, fa_j, fa_j, pa])
     gb = jnp.concatenate([fa_i, fa_j, fa_i, fa_j, pa])
     valid = jnp.concatenate([s_fac_mask] * 4 + [s_pri_mask])
-    blocks = jnp.einsum("fab,fac->fbc", ga, gb)                   # [K,3,3]
+    blocks = jnp.einsum("fab,fac->fbc", ga, gb, precision=_HI)     # [K,3,3]
 
     a_comp = jnp.arange(3, dtype=jnp.int32)[:, None]
     b_comp = jnp.arange(3, dtype=jnp.int32)[None, :]
@@ -369,7 +373,8 @@ def assemble_local_parts(ni, ns, ai, aj, r, ap, rp, s_fac_mask,
     lv = jnp.concatenate([s_i_loc, s_j_loc, s_p_loc])
     gv = jnp.concatenate([fa_i, fa_j, pa])
     validv = jnp.concatenate([s_fac_mask, s_fac_mask, s_pri_mask])
-    vecs = jnp.einsum("fab,fa->fb", gv, res).reshape(-1)          # [K*3]
+    vecs = jnp.einsum("fab,fa->fb", gv, res,
+                      precision=_HI).reshape(-1)                  # [K*3]
     comp = jnp.arange(3, dtype=jnp.int32)[None, :]
 
     def vec_ids(row, match, n_rows):
@@ -403,8 +408,8 @@ def _schur_delta_local(plan, lam, dt, v, axis, sep_global, sep_mask,
     l = jnp.linalg.cholesky(h_ii)
     w = jax.scipy.linalg.cho_solve((l, True), h_is)       # H_II^-1 H_IS
     y = jax.scipy.linalg.cho_solve((l, True), b_i)        # H_II^-1 b_I
-    s_part = h_ss - h_is.T @ w
-    rhs_part = b_s - h_is.T @ y
+    s_part = h_ss - jnp.matmul(h_is.T, w, precision=_HI)
+    rhs_part = b_s - jnp.matmul(h_is.T, y, precision=_HI)
 
     # One fused psum: Schur part, rhs, and the PRE-elimination H_SS
     # diagonal (LM damping must scale the original Hessian diagonal,
@@ -420,7 +425,7 @@ def _schur_delta_local(plan, lam, dt, v, axis, sep_global, sep_mask,
     x_s = jax.scipy.linalg.cho_solve((ls, True), -rhs_tot)   # [NS*3]
 
     # Back-substitute interiors: x_I = -H_II^-1 (b_I + H_IS x_S).
-    x_i = -(y + w @ x_s)
+    x_i = -(y + jnp.matmul(w, x_s, precision=_HI))
 
     # Scatter: interior contributions psum to the replicated delta.
     mine = jnp.zeros((v, 3), dt)

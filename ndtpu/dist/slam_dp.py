@@ -10,7 +10,7 @@ end-to-end with ZERO cross-device communication (sessions are independent;
 merging afterwards is ndtpu.slam.merge + the distributed Schur solve,
 config 5).
 
-This is the TPU-native scale-out of the SLAM pipeline itself, as opposed
+This is the scale-out of the SLAM pipeline itself, as opposed
 to the per-primitive sharding in ndtpu.dist.registration / gridmap: at
 fleet scale the right unit of parallelism is the session, exactly like
 batch inference in serving.
@@ -19,6 +19,7 @@ batch inference in serving.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 
 import jax
@@ -37,8 +38,8 @@ def vmap_cond_hazards(cfg: PipelineConfig) -> list[str]:
 
     Under ``vmap`` every ``lax.cond`` lowers to a select that executes BOTH
     branches for the whole batch, so the cost of the rarely-taken branch is
-    paid every window for every session (measured ~15x for 8 vmapped
-    sessions with the defaults). The offenders, in measured cost order:
+    paid every window for every session. The offenders, most expensive
+    first:
 
     - ``refresh_top_m == 0``: the legacy full-map rebuild (one build_stats
       over ALL keyframe points) runs every window.
@@ -80,18 +81,18 @@ def serving_config(cfg: PipelineConfig, refresh_top_m: int = 12,
       local and global branches per window is strictly worse than global
       alone.
 
-    ``fast=True`` additionally applies the measured serving preset
-    (docs/PERF.md §9 budget: a serving window is LATENCY-bound — ~45
-    sequential LM/PCG iterations at ~0.1-0.6 ms each — so the levers are
-    sequential-depth cuts): loop verification at 6 LM iterations on every
-    2nd beam (the factor's information honestly reflects the subsampled
-    scan), smoother at 1 LM iteration x 6 PCG iterations (warm-started),
+    ``fast=True`` additionally applies the serving preset (a serving
+    window is bound by sequential depth — ~45 dependent LM/PCG iterations —
+    so the levers are sequential-depth cuts): loop verification at 6 LM
+    iterations on every 2nd beam (the factor's information honestly
+    reflects the subsampled scan), smoother at 1 LM iteration x 6 PCG
+    iterations (warm-started),
     two-phase straggler compaction at width 16 for the fused flat
-    frontend (:func:`_frontend_stacked`). Measured on the 8-session
-    serving benchmark (r5 sweep, benchmarks/bench_serving_sweep.py):
-    these caps vs the exact settings are >3x throughput at
-    equal-or-better per-session ATE (the shortened PCG is warm-started
-    every window, so the smoother still converges across windows).
+    frontend (:func:`_frontend_stacked`). On the 8-session serving
+    workload (benchmarks/bench_serving_sweep.py) these caps keep
+    equal-or-better per-session ATE against the exact settings (the
+    shortened PCG is warm-started every window, so the smoother still
+    converges across windows); their speed on the GPU is not measured.
     """
     solver = dataclasses.replace(cfg.solver, local_poses=0,
                                  full_solve_every=0)
@@ -124,9 +125,9 @@ def run_sessions(points, mask, odom, cfg: PipelineConfig):
 
     For S > 1 pass a :func:`serving_config`-shaped ``cfg``: vmapped
     ``lax.cond`` executes both branches, so the default config's full-map
-    rebuild / full-solve branches run every window (measured ~15x
-    slowdown; :func:`vmap_cond_hazards` lists the offenders, and this
-    function warns when one is present).
+    rebuild / full-solve branches run every window
+    (:func:`vmap_cond_hazards` lists the offenders, and this function warns
+    when one is present).
     """
     if points.shape[0] > 1:
         bad = vmap_cond_hazards(cfg)
@@ -134,7 +135,7 @@ def run_sessions(points, mask, odom, cfg: PipelineConfig):
             warnings.warn(
                 "run_sessions with S>1: vmapped lax.cond executes BOTH "
                 "branches, and this config has expensive rare branches "
-                f"({'; '.join(bad)}) — expect ~15x slowdown. Use "
+                f"({'; '.join(bad)}) — every window pays for both. Use "
                 "serving_config(cfg) for the bounded-cost equivalents.",
                 stacklevel=2)
     return jax.vmap(
@@ -147,11 +148,10 @@ def _flat_graph(graph8):
 
     Pose/factor arrays concatenate with a per-session index offset; the
     sessions are independent components, so any mask-driven solver (PCG,
-    linearize, chi2) runs on the union unchanged. This is the TPU-native
+    linearize, chi2) runs on the union unchanged. This is the
     alternative to vmapping the smoother: under vmap every gather/scatter
-    in the PCG matvec carries a batching dimension and falls off XLA's
-    fast gather path (measured ~170 ms per smoothed window for 8 vmapped
-    sessions vs ~8 ms flat); flat indexing keeps them single-axis.
+    in the PCG matvec carries a batching dimension; flat indexing keeps
+    them single-axis (the difference is not measured on the GPU).
     """
     import jax.numpy as jnp
     from ndtpu.graph import factors as fct
@@ -222,8 +222,8 @@ def _smooth_stacked(state8, graph8, any_kf8, need8, cfg: PipelineConfig):
         lin = fct.linearize(g, huber)
         # Current chi2 from the SAME linearization the step uses (the
         # whitened residuals are exactly what chi_s recomputed): one
-        # linearize per iteration saved — the serving window is
-        # latency-bound (docs/PERF.md §9).
+        # linearize per iteration saved — the serving window is bound by
+        # sequential depth.
         chi8 = chi_from(lin)
         lam_v = jnp.repeat(lam8, v)[:, None]        # [S*V, 1] per-pose lam
         # Per-SESSION Krylov scalars: global alpha/beta dot products on the
@@ -343,9 +343,9 @@ def _stacked_window_step(state8, lkr8, pts8, msk8, deltas8,
     ``lax.cond`` and vmap at full speed (the S*W registration lanes and
     S*K*C loop-verification lanes each run as one wide batched LM). The
     smoother and the map refresh DO branch — under vmap a per-session cond
-    executes both branches every window, which is exactly the measured
-    ~15x serving trap — so their conds are hoisted above the vmap: the
-    predicate is batch-reduced to a scalar (``jnp.any``), and the cond
+    executes both branches every window (the serving trap) — so their
+    conds are hoisted above the vmap: the predicate is batch-reduced to a
+    scalar (``jnp.any``), and the cond
     then executes ONE branch at runtime. When any session triggers, every
     session pays (the work is masked per session); on serving workloads
     the smoother tier-1 skip fires on most windows, so the common case
@@ -492,18 +492,26 @@ def run_sessions_sharded(mesh: Mesh, points, mask, odom,
     With exactly one session per device (the fleet-scale sweet spot) the
     pipeline runs UNBATCHED on each device: under ``vmap``, every
     ``lax.cond`` in the pipeline lowers to a select that executes BOTH
-    branches — including the full-map rebuild — every window (measured
-    ~15x slowdown for 8 vmapped sessions on one chip), while the unbatched
-    per-device program keeps real branching.
+    branches — including the full-map rebuild — every window, while the
+    unbatched per-device program keeps real branching.
+
+    The ``shard_map`` runs under ``jax.jit``, compiled once per
+    ``(mesh, cfg, axis)`` and input shape. Called eagerly, ``shard_map``
+    dispatches the pipeline primitive by primitive and recompiles the
+    window scan on every call.
     """
+    return _sessions_sharded_fn(mesh, cfg, axis)(points, mask, odom)
+
+
+@functools.lru_cache(maxsize=8)
+def _sessions_sharded_fn(mesh: Mesh, cfg: PipelineConfig, axis: str):
     def local(p, m, o):
         if p.shape[0] == 1:
             st, outs = pipeline.run_slam_windowed(p[0], m[0], o[0], cfg)
             return jax.tree_util.tree_map(lambda a: a[None], (st, outs))
         return run_sessions(p, m, o, cfg)
 
-    fn = shard_map(
+    return jax.jit(shard_map(
         local, mesh=mesh, in_specs=(P(axis), P(axis), P(axis)),
         out_specs=P(axis), check_vma=False,
-    )
-    return fn(points, mask, odom)
+    ))

@@ -11,6 +11,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from ndtpu.lie import se2
+from ndtpu.utils.runtime import MATMUL_PRECISION as _HI
 
 __all__ = ["align_se2", "ate_rmse", "rpe"]
 
@@ -28,7 +29,7 @@ def align_se2(est_xy, gt_xy):
     theta = jnp.arctan2(cross, dot)
     c, s = jnp.cos(theta), jnp.sin(theta)
     r = jnp.array([[c, -s], [s, c]], est_xy.dtype)
-    t = gm - r @ em
+    t = gm - jnp.matmul(r, em, precision=_HI)
     return theta, t
 
 
@@ -43,7 +44,7 @@ def ate_rmse(est_poses, gt_poses, align: bool = True):
         theta, t = align_se2(e, g)
         c, s = jnp.cos(theta), jnp.sin(theta)
         r = jnp.array([[c, -s], [s, c]], e.dtype)
-        e = e @ r.T + t
+        e = jnp.matmul(e, r.T, precision=_HI) + t
     return jnp.sqrt(jnp.mean(jnp.sum((e - g) ** 2, axis=-1)))
 
 

@@ -5,7 +5,7 @@ factor library" / "Nonlinear layer"): ``PriorFactor<Pose2>`` and
 ``BetweenFactor<Pose2>`` with Gaussian noise models (sqrt-information form)
 and optional robust (Huber) kernels, plus batched linearization.
 
-TPU-first design: a graph is NOT a list of factor objects (GTSAM's
+Design: a graph is NOT a list of factor objects (GTSAM's
 ``NonlinearFactorGraph``) but fixed-capacity SoA arrays — ``(i, j, z,
 sqrt_info, mask)`` — so linearization is one ``vmap`` producing ``[F, 3, 3]``
 Jacobian blocks and ``[F, 3]`` whitened residuals, and graph growth is a
@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 
 from ndtpu.lie import se2
+from ndtpu.utils.runtime import MATMUL_PRECISION as _HI
 
 __all__ = [
     "PoseGraph",
@@ -239,7 +240,9 @@ def linearize(g: PoseGraph, huber_delta: float = 0.0,
     def one_bet(pose_i, pose_j, z, sqi):
         e = between_error(pose_i, pose_j, z)
         ji, jj = _between_jacobians(pose_i, pose_j)
-        return sqi @ ji, sqi @ jj, sqi @ e
+        return (jnp.matmul(sqi, ji, precision=_HI),
+                jnp.matmul(sqi, jj, precision=_HI),
+                jnp.matmul(sqi, e, precision=_HI))
 
     ai, aj, r = jax.vmap(one_bet)(pi, pj, g.bet_z, g.bet_sqrt_info)
     if huber_delta > 0.0:
@@ -249,7 +252,7 @@ def linearize(g: PoseGraph, huber_delta: float = 0.0,
     ai, aj, r = ai * m[:, None, None], aj * m[:, None, None], r * m[:, None]
 
     def one_pri(pose, z, sqi):
-        return sqi, sqi @ prior_error(pose, z)
+        return sqi, jnp.matmul(sqi, prior_error(pose, z), precision=_HI)
 
     ap, rp = jax.vmap(one_pri)(g.poses[g.prior_idx], g.prior_z,
                                g.prior_sqrt_info)

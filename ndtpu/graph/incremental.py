@@ -4,7 +4,7 @@ Capability parity (SURVEY.md §3.2 "iSAM2 incremental smoother", §4.3): after
 each new keyframe the backend must refine the trajectory at bounded cost —
 GTSAM does this with a Bayes tree (mark affected cliques, selective
 relinearization, partial re-elimination). A pointer-based Bayes tree is the
-wrong shape for a TPU, so the *capability* is re-engineered (SURVEY.md §8
+wrong shape for batched tensor programs, so the *capability* is re-engineered (SURVEY.md §8
 Phase C, explicitly "not a port"):
 
 - **Warm start replaces partial re-elimination.** The current estimate is
@@ -15,7 +15,7 @@ Phase C, explicitly "not a port"):
   pcg_iters small and data-adaptive — the bounded-cost property iSAM2 gets
   from clique marking, obtained instead from Krylov convergence.
 - **Relinearization is batched, and skipped when useless.** Relinearizing
-  *all* factors is one vmap (cheap on TPU); the iSAM2 relinearization
+  *all* factors is one vmap; the iSAM2 relinearization
   *threshold* survives as a skip test — if the last accepted step moved no
   pose by more than ``relin_threshold``, the estimate is declared settled
   and the update does zero solves (``lax.cond`` fast path).
@@ -39,6 +39,7 @@ from ndtpu.config import SolverConfig
 from ndtpu.graph import factors as fct
 from ndtpu.graph import solve as slv
 from ndtpu.lie import se2
+from ndtpu.utils.runtime import MATMUL_PRECISION as _HI
 
 __all__ = ["SmootherState", "init_smoother", "incremental_update",
            "local_update", "fresh_residual_max", "full_solve",
@@ -96,7 +97,7 @@ def fresh_residual_max(g: fct.PoseGraph, k: int = 64):
     z, sqi = sl(g.bet_z), sl(g.bet_sqrt_info)
     m = sl(g.bet_mask)
     r = jax.vmap(fct.between_error)(g.poses[i], g.poses[j], z)
-    wr = jnp.einsum("fab,fb->fa", sqi, r)
+    wr = jnp.einsum("fab,fb->fa", sqi, r, precision=_HI)
     return jnp.max(jnp.where(m[:, None], jnp.abs(wr), 0.0))
 
 
@@ -176,9 +177,9 @@ def _local_select(g: fct.PoseGraph, cfg: SolverConfig, since=None,
     assignment, local index map, gathered-factor ids, endpoint roles.
 
     Hoisted out of the GN iteration (and reusable across iterations): the
-    probe + two top_k sorts cost ~2.2 ms each at 100k poses, while the
-    per-iteration relinearize/assemble/solve of the 128-pose subproblem is
-    sub-millisecond.
+    probe and two top_k sorts are O(V) over the whole graph, while the
+    per-iteration relinearize/assemble/solve touches only the local
+    subproblem.
     """
     from ndtpu.dist.schur import INTERIOR, SEPARATOR
 
@@ -231,7 +232,9 @@ def _local_system(g: fct.PoseGraph, cfg: SolverConfig, huber_delta: float,
     def one_bet(pose_i, pose_j, z1, s1):
         e = fct.between_error(pose_i, pose_j, z1)
         ji, jj = fct._between_jacobians(pose_i, pose_j)
-        return s1 @ ji, s1 @ jj, s1 @ e
+        return (jnp.matmul(s1, ji, precision=_HI),
+                jnp.matmul(s1, jj, precision=_HI),
+                jnp.matmul(s1, e, precision=_HI))
 
     ai, aj, r = jax.vmap(one_bet)(g.poses[bi], g.poses[bj],
                                   g.bet_z[fid], g.bet_sqrt_info[fid])
@@ -244,7 +247,7 @@ def _local_system(g: fct.PoseGraph, cfg: SolverConfig, huber_delta: float,
 
     # Priors on active poses also participate.
     def one_pri(pose, z1, s1):
-        return s1, s1 @ fct.prior_error(pose, z1)
+        return s1, jnp.matmul(s1, fct.prior_error(pose, z1), precision=_HI)
     ap, rp = jax.vmap(one_pri)(g.poses[g.prior_idx], g.prior_z,
                                g.prior_sqrt_info)
     mp = p_act.astype(rp.dtype)
@@ -268,13 +271,14 @@ def _local_system(g: fct.PoseGraph, cfg: SolverConfig, huber_delta: float,
 
     def chi_local(poses):
         e = jax.vmap(fct.between_error)(poses[bi], poses[bj], g.bet_z[fid])
-        rr = jnp.einsum("fab,fb->fa", g.bet_sqrt_info[fid], e)
+        rr = jnp.einsum("fab,fb->fa", g.bet_sqrt_info[fid], e, precision=_HI)
         if huber_delta > 0.0:
             rr = rr * fct.robust_weight(jnp.linalg.norm(rr, axis=-1),
                                         huber_delta)[:, None]
         rr = rr * mf[:, None]
         ep = jax.vmap(fct.prior_error)(poses[g.prior_idx], g.prior_z)
-        rrp = jnp.einsum("fab,fb->fa", g.prior_sqrt_info, ep) * mp[:, None]
+        rrp = jnp.einsum("fab,fb->fa", g.prior_sqrt_info, ep,
+                         precision=_HI) * mp[:, None]
         return jnp.sum(rr * rr) + jnp.sum(rrp * rrp)
 
     return solve, chi_local
@@ -409,7 +413,8 @@ def incremental_update(state: SmootherState, cfg: SolverConfig,
         live = g.pose_mask.astype(dt)
         eye = jnp.eye(3, dtype=dt)
         dblocks = dblocks + (1e-8 + (1.0 - live))[:, None, None] * eye
-        step = jnp.einsum("vab,vb->va", slv._inv3(dblocks), grad)
+        step = jnp.einsum("vab,vb->va", slv._inv3(dblocks), grad,
+                          precision=_HI)
         return jax.lax.cond(jnp.max(jnp.abs(step)) < cfg.relin_threshold,
                             skip, do_update, g, lam)
 

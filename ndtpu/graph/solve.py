@@ -6,18 +6,18 @@ factor linearization and solves for the update, inside a damped nonlinear
 iteration — the role GTSAM's ``GaussNewtonOptimizer`` /
 ``LevenbergMarquardtOptimizer`` + multifrontal elimination play.
 
-TPU-first design — two solver paths, both expressed as dense-block tensor
-programs rather than a pointer-based elimination tree:
+Design — two solver paths, both expressed as dense-block tensor programs
+rather than a pointer-based elimination tree:
 
 - **Dense block Cholesky** (small/medium graphs): the block-sparse Hessian
   is scattered into ``[V, V, 3, 3]`` → ``[3V, 3V]`` and solved with XLA's
-  ``cholesky`` + ``triangular_solve``. On a v5e this is MXU-bound and beats
-  sequential sparse elimination up to a few thousand poses.
+  ``cholesky`` + ``triangular_solve`` — dense matrix work instead of
+  sequential sparse elimination, up to a few thousand poses.
 - **Matrix-free PCG** (large graphs, BASELINE config 4): ``H @ x`` is two
   gathers + one einsum + one ``segment_sum`` over the factor SoA — never
   materializing H — preconditioned by the inverse 3x3 block diagonal.
   Chordal/sparse-direct alternatives serialize; CG iterations are pure
-  batched FLOPs, the shape TPUs want.
+  batched FLOPs.
 
 Both paths share the LM trust-region loop with chi2 accept/reject.
 """
@@ -32,6 +32,7 @@ import jax.numpy as jnp
 from ndtpu.config import SolverConfig
 from ndtpu.graph import factors as fct
 from ndtpu.lie import se2
+from ndtpu.utils.runtime import MATMUL_PRECISION as _HI
 
 __all__ = ["SolveResult", "normal_equations", "hessian_matvec",
            "block_diag_hessian", "solve_dense", "pcg", "pcg_rhs",
@@ -63,15 +64,15 @@ def normal_equations(g: fct.PoseGraph, lin):
     h = jnp.zeros((v, v, 3, 3), dt)
     b = jnp.zeros((v, 3), dt)
     i, j = g.bet_i, g.bet_j
-    h = h.at[i, i].add(jnp.einsum("fab,fac->fbc", ai, ai))
-    h = h.at[i, j].add(jnp.einsum("fab,fac->fbc", ai, aj))
-    h = h.at[j, i].add(jnp.einsum("fab,fac->fbc", aj, ai))
-    h = h.at[j, j].add(jnp.einsum("fab,fac->fbc", aj, aj))
-    b = b.at[i].add(jnp.einsum("fab,fa->fb", ai, r))
-    b = b.at[j].add(jnp.einsum("fab,fa->fb", aj, r))
+    h = h.at[i, i].add(jnp.einsum("fab,fac->fbc", ai, ai, precision=_HI))
+    h = h.at[i, j].add(jnp.einsum("fab,fac->fbc", ai, aj, precision=_HI))
+    h = h.at[j, i].add(jnp.einsum("fab,fac->fbc", aj, ai, precision=_HI))
+    h = h.at[j, j].add(jnp.einsum("fab,fac->fbc", aj, aj, precision=_HI))
+    b = b.at[i].add(jnp.einsum("fab,fa->fb", ai, r, precision=_HI))
+    b = b.at[j].add(jnp.einsum("fab,fa->fb", aj, r, precision=_HI))
     p = g.prior_idx
-    h = h.at[p, p].add(jnp.einsum("fab,fac->fbc", ap, ap))
-    b = b.at[p].add(jnp.einsum("fab,fa->fb", ap, rp))
+    h = h.at[p, p].add(jnp.einsum("fab,fac->fbc", ap, ap, precision=_HI))
+    b = b.at[p].add(jnp.einsum("fab,fa->fb", ap, rp, precision=_HI))
     hd = jnp.transpose(h, (0, 2, 1, 3)).reshape(3 * v, 3 * v)
     return hd, b.reshape(-1)
 
@@ -80,19 +81,21 @@ def hessian_matvec(g: fct.PoseGraph, lin, x):
     """Matrix-free ``H @ x`` over the factor SoA (x: ``[V, 3]``).
 
     Two gathers (x_i, x_j), per-factor 3x3 GEMMs, one segment-sum scatter —
-    the TPU-sparse replacement for CSR SpMV.
+    the batched replacement for CSR SpMV.
     """
     (ai, aj, r), (ap, rp) = lin
     v = g.poses.shape[0]
     xi = x[g.bet_i]
     xj = x[g.bet_j]
     # y_f = A_i x_i + A_j x_j  (whitened row space)
-    yf = jnp.einsum("fab,fb->fa", ai, xi) + jnp.einsum("fab,fb->fa", aj, xj)
+    yf = (jnp.einsum("fab,fb->fa", ai, xi, precision=_HI)
+          + jnp.einsum("fab,fb->fa", aj, xj, precision=_HI))
     out = jnp.zeros((v, 3), x.dtype)
-    out = out.at[g.bet_i].add(jnp.einsum("fab,fa->fb", ai, yf))
-    out = out.at[g.bet_j].add(jnp.einsum("fab,fa->fb", aj, yf))
-    yp = jnp.einsum("fab,fb->fa", ap, x[g.prior_idx])
-    out = out.at[g.prior_idx].add(jnp.einsum("fab,fa->fb", ap, yp))
+    out = out.at[g.bet_i].add(jnp.einsum("fab,fa->fb", ai, yf, precision=_HI))
+    out = out.at[g.bet_j].add(jnp.einsum("fab,fa->fb", aj, yf, precision=_HI))
+    yp = jnp.einsum("fab,fb->fa", ap, x[g.prior_idx], precision=_HI)
+    out = out.at[g.prior_idx].add(
+        jnp.einsum("fab,fa->fb", ap, yp, precision=_HI))
     return out
 
 
@@ -101,9 +104,9 @@ def gradient(g: fct.PoseGraph, lin):
     (ai, aj, r), (ap, rp) = lin
     v = g.poses.shape[0]
     b = jnp.zeros((v, 3), r.dtype)
-    b = b.at[g.bet_i].add(jnp.einsum("fab,fa->fb", ai, r))
-    b = b.at[g.bet_j].add(jnp.einsum("fab,fa->fb", aj, r))
-    b = b.at[g.prior_idx].add(jnp.einsum("fab,fa->fb", ap, rp))
+    b = b.at[g.bet_i].add(jnp.einsum("fab,fa->fb", ai, r, precision=_HI))
+    b = b.at[g.bet_j].add(jnp.einsum("fab,fa->fb", aj, r, precision=_HI))
+    b = b.at[g.prior_idx].add(jnp.einsum("fab,fa->fb", ap, rp, precision=_HI))
     return b
 
 
@@ -112,9 +115,10 @@ def block_diag_hessian(g: fct.PoseGraph, lin):
     (ai, aj, r), (ap, rp) = lin
     v = g.poses.shape[0]
     d = jnp.zeros((v, 3, 3), r.dtype)
-    d = d.at[g.bet_i].add(jnp.einsum("fab,fac->fbc", ai, ai))
-    d = d.at[g.bet_j].add(jnp.einsum("fab,fac->fbc", aj, aj))
-    d = d.at[g.prior_idx].add(jnp.einsum("fab,fac->fbc", ap, ap))
+    d = d.at[g.bet_i].add(jnp.einsum("fab,fac->fbc", ai, ai, precision=_HI))
+    d = d.at[g.bet_j].add(jnp.einsum("fab,fac->fbc", aj, aj, precision=_HI))
+    d = d.at[g.prior_idx].add(
+        jnp.einsum("fab,fac->fbc", ap, ap, precision=_HI))
     return d
 
 
@@ -185,7 +189,7 @@ def pcg_rhs(g: fct.PoseGraph, lin, rhs, lam, cfg: SolverConfig):
 
     x0 = jnp.zeros_like(rhs)
     r0 = rhs  # - A @ 0
-    z0 = jnp.einsum("vab,vb->va", minv, r0)
+    z0 = jnp.einsum("vab,vb->va", minv, r0, precision=_HI)
     p0 = z0
     rz0 = jnp.sum(r0 * z0)
     bnorm = jnp.sqrt(jnp.sum(rhs * rhs))
@@ -201,7 +205,7 @@ def pcg_rhs(g: fct.PoseGraph, lin, rhs, lam, cfg: SolverConfig):
         alpha = rz / jnp.maximum(jnp.sum(p * ap), 1e-30)
         x = x + alpha * p
         r = r - alpha * ap
-        z = jnp.einsum("vab,vb->va", minv, r)
+        z = jnp.einsum("vab,vb->va", minv, r, precision=_HI)
         rz_new = jnp.sum(r * z)
         beta = rz_new / jnp.maximum(rz, 1e-30)
         p = z + beta * p
@@ -256,7 +260,7 @@ def pcg_rhs_blocked(g: fct.PoseGraph, lin, rhs, lam, cfg: SolverConfig,
 
     x0 = jnp.zeros_like(rhs)
     r0 = rhs
-    z0 = jnp.einsum("vab,vb->va", minv, r0)
+    z0 = jnp.einsum("vab,vb->va", minv, r0, precision=_HI)
     rz0 = bsum(r0 * z0)
 
     def body(_, c):
@@ -265,7 +269,7 @@ def pcg_rhs_blocked(g: fct.PoseGraph, lin, rhs, lam, cfg: SolverConfig,
         alpha = rz / jnp.maximum(bsum(p * ap), 1e-30)
         x = x + bexp(alpha) * p
         r = r - bexp(alpha) * ap
-        z = jnp.einsum("vab,vb->va", minv, r)
+        z = jnp.einsum("vab,vb->va", minv, r, precision=_HI)
         rz_new = bsum(r * z)
         beta = rz_new / jnp.maximum(rz, 1e-30)
         p = z + bexp(beta) * p

@@ -2,7 +2,7 @@
 dense blocks (BASELINE config 4; SURVEY.md §3.2 "Inference / elimination").
 
 GTSAM eliminates with a sequential multifrontal QR/Cholesky over a clique
-tree. The TPU-native re-engineering turns the same math into three MXU-shaped
+tree. This re-engineering turns the same math into three batched dense
 stages with NO sequential factor-level loop:
 
 1. **Partition** (host, once per topology): split the (optionally
@@ -36,6 +36,7 @@ from ndtpu.config import SolverConfig
 from ndtpu.dist.schur import SchurPlan, plan_partition
 from ndtpu.graph import factors as fct
 from ndtpu.graph import solve as slv
+from ndtpu.utils.runtime import MATMUL_PRECISION as _HI
 
 __all__ = ["SupernodalPlan", "plan_supernodal", "supernodal_delta",
            "optimize_supernodal"]
@@ -160,9 +161,8 @@ def _assemble_parts(splan: SupernodalPlan, ai, aj, r, ap, rp, dt):
     ``[m, m]`` dense structure.
 
     The previous formulation built ``[P, ni+ns, ni+ns, 3, 3]`` per shard —
-    quadratic in the GLOBAL separator count and catastrophic under TPU tile
-    padding of the trailing ``[3, 3]`` (a 10k-pose Manhattan graph at P=64
-    allocated 482 GB). Here every 3x3 factor block is routed by a flat
+    quadratic in the GLOBAL separator count (and padded in its trailing
+    ``[3, 3]`` by tiled layouts). Here every 3x3 factor block is routed by a flat
     segment id into exactly one of three right-sized targets:
 
     - ``h_ii [P, ni3, ni3]``  interior-interior (same shard by construction)
@@ -205,7 +205,7 @@ def _assemble_parts(splan: SupernodalPlan, ai, aj, r, ap, rp, dt):
     # Ordered endpoint pairs (A, B) per factor: (i,i), (i,j), (j,i), (j,j)
     # plus the prior's (p, p); block_AB = A^T B.
     def pairs(role_a, loc_a, blk_a, role_b, loc_b, blk_b, valid):
-        blocks = jnp.einsum("pfab,pfac->pfbc", blk_a, blk_b)
+        blocks = jnp.einsum("pfab,pfac->pfbc", blk_a, blk_b, precision=_HI)
         return (role_a, loc_a, role_b, loc_b, blocks,
                 jnp.broadcast_to(shard, role_a.shape), valid)
 
@@ -239,8 +239,7 @@ def _assemble_parts(splan: SupernodalPlan, ai, aj, r, ap, rp, dt):
     # Scalar-flat segment ids laid out so the segment_sum output IS the
     # dense [..., 3R, 3C] matrix after a plain reshape: id = ((row*3 + a)
     # * 3C) + col*3 + b. Scattering [K*9] scalars into a flat [n] target
-    # avoids the [n, 9]-shaped alternative whose trailing dim would be tile-
-    # padded 9 -> 128 on TPU (14x HBM traffic on a 200 MB h_is).
+    # avoids an [n, 9]-shaped target with a short trailing dim.
     a_comp = jnp.arange(3, dtype=jnp.int32)[:, None]      # [3, 1]
     b_comp = jnp.arange(3, dtype=jnp.int32)[None, :]      # [1, 3]
 
@@ -271,7 +270,7 @@ def _assemble_parts(splan: SupernodalPlan, ai, aj, r, ap, rp, dt):
 
     # Right-hand side: one entry per factor endpoint (A^T r).
     def bvec(role_a, loc_a, blk_a, res, valid):
-        vec = jnp.einsum("pfab,pfa->pfb", blk_a, res)
+        vec = jnp.einsum("pfab,pfa->pfb", blk_a, res, precision=_HI)
         return (role_a, loc_a, vec, jnp.broadcast_to(shard, role_a.shape),
                 valid)
 
@@ -321,19 +320,21 @@ def supernodal_delta(graph: fct.PoseGraph, lin, plan: SupernodalPlan, lam):
 
     l = jnp.linalg.cholesky(h_ii)                                # [P,ni3,ni3]
     # Invert once (triangular solves against I, the narrow RHS) and apply by
-    # MXU matmuls: TPU triangular_solve is substitution-bound, so solving the
-    # wide [ni3, nsl3] RHS directly is ~2x slower than inv + GEMM.
+    # GEMM instead of solving the wide [ni3, nsl3] RHS by substitution (the
+    # two are not compared on the GPU).
     eye_i = jnp.broadcast_to(jnp.eye(h_ii.shape[-1], dtype=dt), h_ii.shape)
     h_ii_inv = jax.scipy.linalg.cho_solve((l, True), eye_i)
-    w = h_ii_inv @ h_is                                          # [P,ni3,nsl3]
-    y = jnp.einsum("pij,pj->pi", h_ii_inv, b_i)
+    w = jnp.matmul(h_ii_inv, h_is, precision=_HI)                # [P,ni3,nsl3]
+    y = jnp.einsum("pij,pj->pi", h_ii_inv, b_i, precision=_HI)
 
     # Per-shard LOCAL Schur contributions [P, nsl3, nsl3], scattered into
     # the global separator system by flat segment ids. The previous
     # formulation contracted against the GLOBAL-width [ni3, ns3] coupling —
     # ~30x the FLOPs the sparse structure needs (the dominant step cost).
-    s_part = jnp.einsum("pij,pik->pjk", h_is, w)                 # [P,nsl3,nsl3]
-    rhs_part = jnp.einsum("pij,pi->pj", h_is, y)                 # [P, nsl3]
+    s_part = jnp.einsum("pij,pik->pjk", h_is, w,
+                        precision=_HI)                           # [P,nsl3,nsl3]
+    rhs_part = jnp.einsum("pij,pi->pj", h_is, y,
+                          precision=_HI)                         # [P, nsl3]
 
     ls_global = jnp.asarray(plan.ls_global)                      # [P, NSL]
     ls_mask = jnp.asarray(plan.ls_mask)
@@ -365,7 +366,8 @@ def supernodal_delta(graph: fct.PoseGraph, lin, plan: SupernodalPlan, lam):
 
     # Back-substitute with each shard's GATHERED local separator solution.
     x_s_loc = jnp.where(gvalid, x_s[jnp.clip(gidx, 0, ns3 - 1)], 0.0)
-    x_i = -(y + jnp.einsum("pij,pj->pi", w, x_s_loc))            # [P, ni3]
+    x_i = -(y + jnp.einsum("pij,pj->pi", w, x_s_loc,
+                           precision=_HI))                        # [P, ni3]
 
     delta = jnp.zeros((v, 3), dt)
     delta = delta.at[jnp.asarray(sp.int_global)].add(

@@ -7,7 +7,7 @@ around the candidate, and accepted on a score gate. Accepted candidates
 become between factors whose information is the registration Hessian
 (reference behavior: ``noise(H)``).
 
-TPU-first design — this is the headline batching win (SURVEY.md §3.3 "DP"):
+Design — this is the headline batching win (SURVEY.md §3.3 "DP"):
 the reference verifies candidates sequentially; here all ``C`` candidates are
 stacked on a batch axis and verified in ONE compiled program — C local map
 builds (vmapped segment_sum) + C registrations (vmapped LM while_loop).
@@ -28,6 +28,7 @@ from ndtpu.lie import se2
 from ndtpu.ndt import grid as ndt_grid
 from ndtpu.ndt import match as ndt_match
 from ndtpu.slam.keyframes import KeyframeStore
+from ndtpu.utils.runtime import MATMUL_PRECISION as _HI
 
 __all__ = ["LoopCandidates", "LoopResult", "local_grid_config",
            "local_table_shape", "build_local_table", "find_candidates",
@@ -177,7 +178,7 @@ def _gate_and_pack(res, cands: LoopCandidates, loop_cfg: LoopConfig,
     the accumulated-odometry-drift allowance for the traversal gap
     (``max_innovation_base + max_innovation_per_kf * gap``). Without it,
     perceptual aliasing on self-similar worlds (long corridors) admits
-    consistent-but-wrong loops that drag the graph (docs/PERF.md §8).
+    consistent-but-wrong loops that drag the graph (PERF.md).
     """
     accept = (cands.mask
               & res.converged
@@ -213,7 +214,7 @@ def _gate_and_pack(res, cands: LoopCandidates, loop_cfg: LoopConfig,
     h = jnp.where(accept[:, None, None], h, eye)
     w, v = jnp.linalg.eigh(h)
     w = jnp.clip(w, 1e-3, 1e8)
-    h = jnp.einsum("cik,ck,cjk->cij", v, w, v)
+    h = jnp.einsum("cik,ck,cjk->cij", v, w, v, precision=_HI)
     from ndtpu.graph.factors import info_to_sqrt_info
     sqrt_info = info_to_sqrt_info(h + 1e-6 * eye)
     finite = jnp.all(jnp.isfinite(sqrt_info), axis=(-2, -1))

@@ -1,7 +1,7 @@
 """Native (C++) host-side components, loaded through ctypes.
 
 Capability parity: the reference's runtime is C++ end to end; the pieces
-that genuinely belong on the host in the TPU re-engineering — the data
+that genuinely belong on the host in the re-engineering — the data
 loader (SURVEY.md §3.1 "Dataset reader") and the symbolic sparse orderings
 (§3.2 "Sparse ordering libs") — are implemented natively here, with pure-
 Python fallbacks so the package degrades gracefully without a toolchain.

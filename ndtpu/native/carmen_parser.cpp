@@ -1,6 +1,6 @@
 // Fast CARMEN 2D lidar log parser (native data-loader, SURVEY.md §3.1 L0).
 //
-// The reference's data layer is C++; this is its TPU-framework equivalent:
+// The reference's data layer is C++; this is its equivalent here:
 // a single-pass strtod scanner (~50x the Python parser on large logs) with
 // a C ABI consumed through ctypes (no pybind11 in this environment).
 //

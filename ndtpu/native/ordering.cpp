@@ -1,7 +1,7 @@
 // Symbolic orderings for sparse elimination (native inference-layer helper,
 // SURVEY.md §3.2 "Sparse ordering libs": the role CCOLAMD/METIS play in the
 // reference stack). Host-side, once per graph topology — the numeric solve
-// stays on TPU.
+// stays on the device.
 //
 // Provides:
 //   rcm_order     — reverse Cuthill-McKee (bandwidth-minimizing) ordering of

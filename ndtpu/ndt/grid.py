@@ -5,7 +5,7 @@ cell accumulates the sufficient statistics ``(n, sum p, sum p p^T)`` of the
 points that fell in it; the per-cell Gaussian ``(mu, Sigma)`` is derived from
 them with eigenvalue regularization (Biber & Strasser 2003; Magnusson 2009).
 
-TPU-first design (not a port of the reference's per-point C++ loop):
+Design (not a port of the reference's per-point C++ loop):
 
 - The map is a **dense SoA tensor** over all ``G x C`` cells (``G`` = number
   of half-cell-shifted overlap grids, ``C = nx*ny``) — static shapes, so the
@@ -18,7 +18,7 @@ TPU-first design (not a port of the reference's per-point C++ loop):
   map build, SURVEY.md §1 capability 4) and ``finalize`` is a cheap
   closed-form pass (2x2 eigendecomposition is analytic) done whenever the
   matcher needs a fresh Gaussian view.
-- Everything is dtype-polymorphic; f32 on TPU, f64 for test oracles.
+- Everything is dtype-polymorphic; f32 on the device, f64 for test oracles.
 """
 
 from __future__ import annotations
@@ -167,9 +167,8 @@ def _add_points_halfcell(stats: NDTStats, points, mask, grid: GridConfig,
     ``(2i+gx, 2j+gy)`` on the ``(2ny+1, 2nx+1)`` half-cell lattice — the
     same derivation :func:`pack_quad` uses for lookup. Scattering the 7
     moment values once at half-cell resolution and pooling densely replaces
-    4 per-grid scatters: the scatter is index-rate bound on this chip
-    (docs/PERF.md §3), so this is ~4x fewer of the expensive rows while the
-    pooling is cheap dense VPU work. Consistency bonus: the builder now
+    4 per-grid scatters: 4x fewer scattered rows, while the pooling is
+    cheap dense elementwise work. Consistency bonus: the builder now
     assigns boundary points by the identical half-cell floor the matcher's
     quad lookup uses.
     """
@@ -213,7 +212,7 @@ def _eig2x2_sym(a, b, c):
 
     Returns ``(l1, l2, v1)`` with ``l1 >= l2`` and ``v1`` ``[..., 2]`` the
     unit eigenvector of ``l1``. Fully branch-free (where-selects) so it
-    vmaps/jits over all cells at once — the TPU replacement for Eigen's
+    vmaps/jits over all cells at once — the batched replacement for Eigen's
     ``SelfAdjointEigenSolver`` per cell (SURVEY.md §3.2 'Dense linear
     algebra').
     """
@@ -325,7 +324,7 @@ def _pack_bf16_pair(a, b):
 
 def unpack_bf16_pair(lane, dtype=jnp.float32):
     """Invert :func:`_pack_bf16_pair` with pure elementwise integer ops
-    (no minor dims — keeps the hot unpack on the VPU fast path)."""
+    (no minor dims — the hot unpack stays elementwise)."""
     # An f64 lane (x64 oracle path) is an exactly-promoted f32: demote first.
     u = jax.lax.bitcast_convert_type(lane.astype(jnp.float32), jnp.uint32)
     a = jax.lax.bitcast_convert_type(u << 16, jnp.float32)
@@ -340,10 +339,8 @@ def pack_quad(ndt_map: NDTMap, grid: GridConfig, compact: bool = False) -> jax.A
     Row layout per overlap grid g: ``[mu_x, mu_y, icov_00, icov_01, icov_11,
     valid, 0, 0]``. One row holds the Gaussians of ALL overlap grids for a
     half-cell, so the matcher's hot loop performs ONE gather per point
-    instead of one per (grid, point) — 4x fewer gather indices, and (the big
-    win) the gather's index array has no G extent, which keeps XLA's TPU
-    lowering on the fast vectorized-gather path (measured ~150x faster than
-    the per-grid formulation at B=256, N=720, 128x128 cells).
+    instead of one per (grid, point) — 4x fewer gather indices, and the
+    gather's index array has no G extent (one contiguous row per point).
 
     Derivation: with half-cell size ``h = cell/2`` and half-cell index
     ``hx = floor((x - x0)/h)``, the cell of overlap grid g (origin shift
@@ -355,9 +352,8 @@ def pack_quad(ndt_map: NDTMap, grid: GridConfig, compact: bool = False) -> jax.A
     dt = mean.dtype
     g_dim = valid.shape[0]
     if compact:
-        # 4 lanes per grid (VERDICT r3 roofline work: the matcher is
-        # gather-bandwidth-bound, so halving the row from 128 B to 64 B is
-        # the lever): mu keeps full f32 precision; the icov entries and the
+        # 4 lanes per grid (a 64 B row instead of 128 B): mu keeps full
+        # f32 precision; the icov entries and the
         # valid flag ride as bf16 pairs packed into f32 lanes (~0.4%
         # relative icov error — immaterial next to the eig regularization).
         comp = jnp.stack(
@@ -406,8 +402,7 @@ def lookup_quad(table: jax.Array, x: jax.Array, y: jax.Array,
     hx = jnp.floor((x - grid.x0) * inv)
     hy = jnp.floor((y - grid.y0) * inv)
     inb = (hx >= 0) & (hx < wh) & (hy >= 0) & (hy < hh)
-    # Combine in f32 (exact for lattices < 2^24 rows) -> ONE int cast+clip:
-    # this shape keeps the TPU gather on its fast path.
+    # Combine in f32 (exact for lattices < 2^24 rows) -> ONE int cast+clip.
     fid = hy * wh + hx
     idx = jnp.clip(fid.astype(jnp.int32), 0, wh * hh - 1)
     return table[idx], inb
@@ -429,10 +424,9 @@ def lookup_quad_multi(tables: jax.Array, x: jax.Array, y: jax.Array,
 
     The per-lane table is folded into the ROW axis (one flat ``[B*R, L]``
     table, index = lane * R + row) instead of a batched-gather
-    (``take_along_axis``) formulation: a gather with a batching dimension
-    falls off XLA's fast vectorized-row-gather path on TPU (measured
-    ~3 ms vs ~0.1 ms per LM iteration at 128 lanes x 180 points — the
-    same cliff as the per-grid gather in :func:`pack_quad`'s rationale).
+    (``take_along_axis``) formulation: the gather stays a plain row gather
+    with no batching dimension (the two forms are not compared on the
+    GPU).
     """
     dt = x.dtype
     b, r, l = tables.shape
@@ -462,10 +456,9 @@ def lookup_quad_grouped(tables_flat: jax.Array, r: int, group: jax.Array,
     :func:`lookup_quad_multi` (a batched gather falls off the fast
     row-gather path); the only difference is the lane->table indirection.
 
-    The caller flattens ``[S, R, L] -> [S*R, L]`` ONCE per LM call: on
-    TPU that reshape is a tiled-layout copy (R is not a tile multiple),
-    and done inside the matcher's while_loop body it re-runs every
-    iteration (measured ~0.04 ms x ~27 iterations per serving window).
+    The caller flattens ``[S, R, L] -> [S*R, L]`` ONCE per LM call, so a
+    reshape that lowers to a copy never runs inside the matcher's
+    while_loop body.
     """
     dt = x.dtype
     wh, hh = _quad_lattice(grid)

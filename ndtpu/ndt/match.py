@@ -8,7 +8,7 @@ Marquardt) steps with step control, and an iteration/tolerance stop. The
 converged Hessian is returned as the information matrix for the downstream
 pose-graph factor (reference behavior: ``H^{-1} -> factor covariance``).
 
-TPU-first design:
+Design:
 
 - The per-point inner loop is one fused gather + vectorized FLOP block over
   ``[G, N]`` (overlap grids x beams) — no point loop exists; XLA fuses the
@@ -33,6 +33,7 @@ import jax.numpy as jnp
 
 from ndtpu.config import GridConfig, MatchConfig
 from ndtpu.ndt.grid import NDTMap, lookup
+from ndtpu.utils.runtime import MATMUL_PRECISION as _HI
 
 __all__ = ["MatchResult", "transform_terms", "point_terms",
            "point_terms_quad", "score_grad_hess", "lm_loop",
@@ -72,7 +73,8 @@ def point_terms(pose, xw, dxdphi, mean, icov, w0, cfg: MatchConfig):
     """
     dt = xw.dtype
     d = xw[None] - mean                                 # [G, N, 2]
-    q = jnp.einsum("gnij,gnj->gni", icov, d)            # [G, N, 2] = Lambda d
+    q = jnp.einsum("gnij,gnj->gni", icov, d,
+                   precision=_HI)                       # [G, N, 2] = Lambda d
     l2 = jnp.sum(d * q, axis=-1)                        # [G, N] Mahalanobis^2
     d2 = jnp.asarray(cfg.d2, dt)
     e = jnp.exp(-0.5 * d2 * jnp.clip(l2, 0.0, cfg.exp_clip))
@@ -81,10 +83,11 @@ def point_terms(pose, xw, dxdphi, mean, icov, w0, cfg: MatchConfig):
     # a_k = d^T Lambda J_k with J = [e1 | e2 | dx/dphi]  -> a = [q_x, q_y, q.J3]
     a3 = jnp.sum(q * dxdphi[None], axis=-1)
     a = jnp.stack([q[..., 0], q[..., 1], a3], axis=-1)  # [G, N, 3]
-    g = d2 * jnp.einsum("gn,gnk->k", w, a)
+    g = d2 * jnp.einsum("gn,gnk->k", w, a, precision=_HI)
 
     # J^T Lambda J assembled from Lambda entries and Lambda @ J3.
-    ld = jnp.einsum("gnij,nj->gni", icov, dxdphi)       # [G, N, 2]
+    ld = jnp.einsum("gnij,nj->gni", icov, dxdphi,
+                    precision=_HI)                      # [G, N, 2]
     j33 = jnp.sum(dxdphi[None] * ld, axis=-1)           # [G, N]
     jlj = jnp.stack(
         [
@@ -99,7 +102,7 @@ def point_terms(pose, xw, dxdphi, mean, icov, w0, cfg: MatchConfig):
     e33 = jnp.zeros((3, 3), dt).at[2, 2].set(1.0)
     h_pt = (jlj + hpp[..., None, None] * e33
             - d2 * a[..., :, None] * a[..., None, :])
-    h = d2 * jnp.einsum("gn,gnkl->kl", w, h_pt)
+    h = d2 * jnp.einsum("gn,gnkl->kl", w, h_pt, precision=_HI)
 
     wsum = jnp.sum(w)
     return -wsum, g, h, wsum, jnp.sum(w0)
@@ -125,9 +128,9 @@ def score_grad_hess(pose, points, mask, ndt_map: NDTMap, grid: GridConfig,
 def solve3(a, b):
     """Closed-form 3x3 linear solve (Cramer's rule).
 
-    XLA's general ``linalg.solve`` lowers to an LU-decomposition expansion
-    that is both slow for tiny systems and unimplemented for f64 on TPU;
-    Cramer is branch-free, batched, and exact to rounding for 3x3.
+    XLA's general ``linalg.solve`` lowers to an LU decomposition, heavy
+    machinery for a batch of tiny systems; Cramer is branch-free, batched,
+    and exact to rounding for 3x3.
     a: ``[..., 3, 3]``, b: ``[..., 3]``.
     """
     c00 = a[..., 1, 1] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 1]
@@ -236,7 +239,7 @@ def match(points, mask, ndt_map: NDTMap, init_pose, grid: GridConfig,
 
 def point_terms_quad(poses, x, y, dpx, dpy, rows, w_mask,
                      cfg: MatchConfig, overlap: int):
-    """Batched NDT objective terms from quad-table rows (the TPU-fast path).
+    """Batched NDT objective terms from quad-table rows (the fast path).
 
     poses ``[B, 3]``; x/y/dpx/dpy ``[B, N]`` world points and their
     phi-derivatives as separate planes; rows ``[B, N, G*8]`` gathered quad
@@ -244,8 +247,7 @@ def point_terms_quad(poses, x, y, dpx, dpy, rows, w_mask,
     in-bounds x scan-mask weight. All math is elementwise over ``[B, N]``
     (N in lanes — no ``[..., 2, 2]`` minor dims, no G-extent in any gathered
     index), with a static unrolled loop over the G overlap grids. Numerically
-    the same model as :func:`point_terms` (and the Pallas kernel), with
-    per-``B`` outputs. Returns ``(f [B], g [B,3], h [B,3,3], wsum [B],
+    the same model as :func:`point_terms`, with per-``B`` outputs. Returns ``(f [B], g [B,3], h [B,3,3], wsum [B],
     w0sum [B])``.
     """
     dt = x.dtype
@@ -418,10 +420,9 @@ def match_batch_packed(points, mask, table, init_poses, grid: GridConfig,
     grouped = group is not None
     if table.ndim == 3:
         # Per-lane ([B, R, L], group absent) and per-group ([S, R, L])
-        # tables both run the same flat row-fold: flatten ONCE here —
-        # on TPU the reshape is a tiled-layout copy, and inside the LM
-        # while_loop body it would re-run every iteration (measured
-        # ~0.04 ms x ~27 iterations per serving window).
+        # tables both run the same flat row-fold: flatten ONCE here, so a
+        # reshape that lowers to a copy never runs inside the LM
+        # while_loop body.
         r_rows = table.shape[1]
         table = table.reshape(-1, table.shape[-1])
         if not grouped:

@@ -5,7 +5,7 @@ Two roles (SURVEY.md §5, §7):
 1. **Correctness oracle**: a straightforward per-point, per-cell loopy
    implementation of NDT map building and registration, written the way the
    reference's single-thread C++ does it (SURVEY.md §4.2/§4.4 pseudocode).
-   Tests compare the TPU tensor programs against this to f64 precision.
+   Tests compare the JAX tensor programs against this to f64 precision.
 2. **Baseline proxy**: the reference binary cannot be built (empty checkout,
    SURVEY.md §0) and it publishes no numbers (BASELINE.md). The measurable
    stand-in for "single-thread C++ baseline" is :func:`match_vectorized` —

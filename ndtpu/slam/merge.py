@@ -3,13 +3,13 @@
 Capability: two SLAM sessions with unknown relative transform are merged
 into one map + one pose graph:
 
-1. **Global alignment** — TPU-style brute force: a dense grid of candidate
+1. **Global alignment** — batched brute force: a dense grid of candidate
    relative poses (translations x headings) is scored against the target
    session's NDT map in ONE batched call (every hypothesis is a lane of
    ``match_batch``), then the best hypothesis is refined by full LM
    registration. No feature extraction, no host loop — the search is one
-   compiled program, which is exactly the shape where a TPU beats the
-   reference's sequential candidate testing.
+   compiled program instead of the reference's sequential candidate
+   testing.
 2. **Graph fusion** — session B's poses/factors append to A's graph with an
    index offset; verified alignments become inter-session between factors;
    a joint optimization ties the sessions together.

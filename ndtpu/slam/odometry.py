@@ -4,7 +4,7 @@ Capability parity (SURVEY.md §4.1 "Main SLAM loop", frontend half): for each
 scan — predict from odometry, register against the current NDT map, spawn a
 keyframe on distance/angle thresholds, fold keyframe scans into the map.
 
-Two TPU-first formulations of the same capability:
+Two formulations of the same capability:
 
 - :func:`run_odometry` — the whole sequence is ONE ``lax.scan`` over time
   steps with the dense map statistics as the carry; map updates are masked
@@ -14,10 +14,8 @@ Two TPU-first formulations of the same capability:
   batched LM dispatch against a per-window frozen map (quad table packed
   once per window), with a refresh pass that folds the window's own
   keyframes back in; everything sequential inside a window (dead-reckoned
-  inits, greedy keyframe selection) is closed-form/log-depth vectorized
-  because carried tiny ops cost ~0.7 ms each on this backend
-  (docs/PERF.md §1-2). ~3,000 scans/s end-to-end on a v5e vs ~240 for the
-  per-scan scan-program.
+  inits, greedy keyframe selection) is closed-form/log-depth vectorized,
+  because every carried tiny op is a dependent step on the device.
 """
 
 from __future__ import annotations
@@ -114,8 +112,8 @@ def chain_deltas(pose0, deltas):
     Closed form — two ``cumsum``s, no sequential scan: heading is a prefix
     sum of delta angles, and each delta's translation is rotated by the
     *previous* heading before a prefix sum over positions. A ``lax.scan`` of
-    W tiny composes costs ~0.7 ms per step on this backend (measured 5.9 ms
-    at W=8); this form is a handful of fused vector ops.
+    W tiny composes is W dependent steps; this form is a handful of fused
+    vector ops.
     """
     th = pose0[2] + jnp.cumsum(deltas[:, 2])
     th_prev = jnp.concatenate([pose0[2][None], th[:-1]])
@@ -132,8 +130,8 @@ def kf_select(last_kf, poses, dist_thresh: float, angle_thresh: float):
 
     Exactly reproduces the sequential rule — walk the scans, spawn a
     keyframe whenever distance/angle from the LAST spawned keyframe exceeds
-    a threshold — without a sequential scan (measured ~0.7 ms per scan step
-    on this backend). The greedy chain is a functional graph
+    a threshold — without a sequential scan of W dependent steps. The
+    greedy chain is a functional graph
     ``next(i) = first j > i triggering from pose_i``; the selected set is
     the orbit of the pre-window keyframe, computed by boolean transitive
     closure via log2(W) matrix squarings on a ``[W+2, W+2]`` reachability
@@ -187,11 +185,11 @@ def run_odometry_windowed(points, mask, odom, grid: GridConfig,
                           kf_cfg: KeyframeConfig, window: int = 16,
                           passes: int = 2, odom_gate: float = 1.0,
                           init_pose=None) -> OdometryResult:
-    """Window-batched scan-to-map NDT odometry (the TPU-fast front end).
+    """Window-batched scan-to-map NDT odometry (the fast front end).
 
     Identical capability to :func:`run_odometry`, restructured for the
-    hardware (VERDICT r2 item 1: the per-scan path was latency-bound at
-    ~48 scans/s): scans are processed in windows of ``W = window`` steps —
+    hardware (the per-scan path is latency-bound: one small dependent
+    registration per scan): scans are processed in windows of ``W = window`` steps —
     the map is finalized + quad-packed ONCE per window, all W scans register
     in ONE batched LM dispatch against that frozen map (inits dead-reckoned
     from the last known pose), and keyframe map insertion is one batched

@@ -24,6 +24,7 @@ import numpy as np
 
 
 def main(argv=None):
+    """Run the CLI; returns the :class:`ndtpu.graph.solve.SolveResult`."""
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("input", nargs="?", default=None,
                     help="g2o/TORO file (omit with --manhattan)")
@@ -46,14 +47,11 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    import jax
     import jax.numpy as jnp
 
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          "/tmp/ndtpu_jax_cache")
-    except Exception:
-        pass
+    from ndtpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     from ndtpu.config import SolverConfig
     from ndtpu.data import g2o
@@ -107,6 +105,7 @@ def main(argv=None):
         g2o.write_g2o(args.output, out)
         print(f"[solve_g2o] optimized graph -> {args.output}",
               file=sys.stderr)
+    return res
 
 
 if __name__ == "__main__":

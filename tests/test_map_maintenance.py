@@ -1,5 +1,5 @@
 """Map-maintenance correctness: half-cell builder, incremental refresh,
-cached loop tables (round-4 config-3 work; docs/PERF.md §7)."""
+cached loop tables (round-4 config-3 work; PERF.md)."""
 
 import dataclasses
 

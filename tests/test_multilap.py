@@ -1,4 +1,4 @@
-"""Multi-lap robustness guard (docs/PERF.md §5/§7, VERDICT r3 item 8).
+"""Multi-lap robustness guard (PERF.md, VERDICT r3 item 8).
 
 A reduced-size version of the bench's 1000-scan 3.5-lap run: revisiting
 mapped territory for multiple laps exposed (a) loop-factor spam without the

@@ -130,7 +130,7 @@ def test_no_valid_cells_is_graceful():
 
 def test_compact_table_matches_full():
     """64-byte compact quad rows (bf16-packed icov) vs full 128-byte rows:
-    pose difference sub-millimeter (docs/PERF.md §3)."""
+    pose difference sub-millimeter (PERF.md)."""
     import jax
     import numpy as np
 

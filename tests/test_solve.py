@@ -143,7 +143,7 @@ def test_pcg_rhs_blocked_matches_per_block():
     """pcg_rhs_blocked on a block-diagonal stacked graph == pcg_rhs run
     independently on each component (per-block Krylov scalars make the
     lockstep iteration exactly S independent PCGs — the stacked-serving
-    smoother's correctness property, docs/PERF.md §9)."""
+    smoother's correctness property, PERF.md)."""
     from ndtpu.dist import slam_dp
 
     graphs = []
